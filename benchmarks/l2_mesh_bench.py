@@ -7,7 +7,8 @@ fixture) and times the Pre-Scan column sums and Enet fold Grams through
 (parallel/sharded.sharded_colsum_unused_fn / sharded_fold_grams_fn) on
 the 8-virtual-device CPU mesh, asserting bit-identical results.  A CPU
 mesh measures ROUTE overhead, not speedup — the virtual devices share
-one socket; on a pod the same code divides the k-mer axis over chips.
+one socket; on several GPUs the same code divides the k-mer axis over
+them.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        JAX_PLATFORMS=cpu python benchmarks/l2_mesh_bench.py
@@ -102,8 +103,8 @@ def main():
         "bit_identical": True,
         "note": ("8 virtual CPU devices share one socket: this times the "
                  "mesh ROUTE (dispatch + psum) for correctness-shaped "
-                 "overhead, not speedup; on a pod the k-mer axis divides "
-                 "over chips"),
+                 "overhead, not speedup; on several GPUs the k-mer axis "
+                 "divides over them"),
     }
     print(json.dumps(out))
 

@@ -5,7 +5,7 @@
 Runs ShardedCountPipeline over meshes of 1/2/4/8 virtual CPU devices
 (data axis scaling; index=2 where the device count allows) on one fixed
 read stream and reports reads/s per mesh, asserting bit-exact counts vs
-the single-device CountPipeline every time.  CPU wall-times are NOT TPU
+the single-device CountPipeline every time.  CPU wall-times are NOT device
 predictions — the point is the shape (does adding data-parallel workers
 scale the stream?) and the correctness of every mesh geometry.
 
@@ -82,7 +82,7 @@ def main():
     res = {"backend": "cpu-virtual", "devices": jax.device_count(),
            "curve": [], "note": ("CPU wall times, 2 physical cores under "
                                  "8 virtual devices — shape and "
-                                 "correctness evidence, not TPU rates")}
+                                 "correctness evidence, not device rates")}
 
     log("tier A: 2M-key curve")
     db, codes = synth(1_000_000, 100_000)

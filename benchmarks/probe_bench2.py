@@ -64,7 +64,6 @@ def bench(bucket, load, rng):
 
 def main():
     rng = np.random.default_rng(0)
-    jax.device_get(jnp.ones((8,), jnp.int32))  # d2h warm
     res = {"device": str(jax.devices()[0]), "n_keys": N_KEYS}
     out = {}
     for bucket in (16, 32, 64, 128):

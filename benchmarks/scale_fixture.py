@@ -9,7 +9,7 @@ benchmarks/SCALE_r02.json run 2).
 
 Artifacts land under <repo>/.scale/ (gitignored):
   genomes/            1647 FASTA files
-  DB/                 TPU-native database
+  DB/                 native-layout database
   REFDB/              the same DB exported to the reference layout
   samples/*.fq        single-strain / cross-cluster / intra-cluster reads
   meta.json           strain names, sample truth, build phase breakdown

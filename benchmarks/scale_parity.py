@@ -4,7 +4,7 @@ Runs over the persistent fixture from benchmarks/scale_fixture.py
 (1647 strains / 28.6M-k-mer DB).  Three modes so the slow halves can run
 independently:
 
-    python benchmarks/scale_parity.py ours    # TPU identify, cold+warm
+    python benchmarks/scale_parity.py ours    # our identify, cold+warm
     python benchmarks/scale_parity.py ref     # reference CLI (jellyfish)
     python benchmarks/scale_parity.py diff    # field-diff + PARITY json
 
@@ -40,16 +40,6 @@ def run_ours():
 
     db = os.path.join(SCALE, "DB")
     timings = {}
-    # d2h warm outside timed region (see bench.py._warm_d2h)
-    try:
-        import jax
-        import jax.numpy as jnp
-
-        t0 = time.time()
-        jax.device_get(jnp.ones((8,), jnp.int32))
-        print(f"d2h warm {time.time()-t0:.0f}s", flush=True)
-    except Exception as e:
-        print(f"d2h warm failed: {e}", flush=True)
     from strainscan_tpu.utils.profiling import PHASE_TIMES
 
     phases = {}

@@ -76,7 +76,7 @@ def _read_fa_kmers(path: str, k: int) -> np.ndarray:
 
 
 def import_reference_db(ref_dir: str, out_dir: str, k: int = 31) -> None:
-    """Convert a reference-built StrainScan DB into the TPU-native layout."""
+    """Convert a reference-built StrainScan DB into the native layout."""
     tdir_in = os.path.join(ref_dir, "Tree_database")
     tdir = os.path.join(out_dir, "tree")
     cdir = os.path.join(out_dir, "cluster")
@@ -285,7 +285,7 @@ def _import_l2_cluster(src: str, out_dir: str, cid: int, k: int,
 
 # --------------------------------------------------------------- export
 def export_reference_db(db_dir: str, out_dir: str) -> None:
-    """Write a TPU-native DB back out in the reference's file layout."""
+    """Write a native-layout DB back out in the reference's file layout."""
     from strainscan_tpu.build.db import load_l2_db, load_manifest, load_tree_db
 
     man = load_manifest(db_dir)

@@ -95,17 +95,18 @@ class IdentifyConfig:
     lowdep_scale: float = 180.0
     lowdep_cov_one: float = 0.05
     lowdep_min_valid: int = 1000
-    # device batching
+    # device batching and multi-device gates; the values of read_batch,
+    # shard_min_kmers and shard_min_l2_rows are not yet measured on the
+    # H100
     read_batch: int = 65536            # reads per device batch
     max_read_len: int = 256            # padded read length bucket ceiling
-    # minimum table size before multi-device index sharding pays for its
-    # collectives; smaller tables (e.g. per-cluster L2 sets) run the fused
-    # single-device pipeline even on a pod
+    # minimum table size before multi-device index sharding is used;
+    # smaller tables (e.g. per-cluster L2 sets) run the single-device
+    # pipeline even with several devices
     shard_min_kmers: int = 2_000_000
     # minimum L2 matrix row count before the Pre-Scan column sums and
     # Enet fold Grams shard their k-mer axis over the mesh (the O(s)
-    # outputs cross ICI via one psum; below this the dispatch+collective
-    # latency exceeds the matvec itself)
+    # outputs cross devices via one psum)
     shard_min_l2_rows: int = 250_000
 
     def ladder(self) -> Tuple[Tuple[float, float, float], ...]:

@@ -68,7 +68,7 @@ def _sharded_pipeline(keys: np.ndarray, table: KmerTable, canonical: bool,
     evicted = _SHARDED_CACHE[_SHARDED_CACHE_MAX:]
     del _SHARDED_CACHE[_SHARDED_CACHE_MAX:]
     for _, _, old in evicted:
-        old.close()   # free HBM now, not at GC time
+        old.close()   # free device memory now, not at GC time
     return pipe
 
 
@@ -86,7 +86,7 @@ def count_sample(
     enough to be worth sharding (``cfg.shard_min_kmers`` — sharding a
     tiny L2 table would only add collective latency), the hash table is
     sharded over the mesh's ``index`` axis and batches stream
-    data-parallel (SURVEY §2.3 TPU-native scale-out); otherwise the fused
+    data-parallel (SURVEY §2.3 scale-out); otherwise the fused
     single-device pipeline runs.  Both return counts in the table's id
     space.
     """
@@ -111,7 +111,7 @@ def count_sample(
         pipe = CountPipeline(table, canonical=canonical)
     # Multi-host (jax.distributed up): each host streams every Nth read
     # batch — deterministic, no duplicated reads — and the per-host count
-    # vectors merge once over DCN (SURVEY §2.3 TPU-native scale-out).
+    # vectors merge once over the network (SURVEY §2.3 scale-out).
     from strainscan_tpu.utils.prefetch import prefetch_iter
     batches = fastx.read_batches(
         fq_paths, batch=cfg.read_batch, maxlen=cfg.max_read_len,

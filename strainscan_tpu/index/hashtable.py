@@ -1,9 +1,9 @@
 """Bucketed open-addressing k-mer hash table.
 
-The TPU-native replacement for jellyfish's restricted counting
+The device-resident replacement for jellyfish's restricted counting
 (``jellyfish count --if kmer.fa``, reference library/identify.py:73-103):
-the DB k-mer set becomes a static hash table resident in HBM (or VMEM when
-small), and sample read k-mers probe it with pure vector arithmetic —
+the DB k-mer set becomes a static hash table resident in device memory,
+and sample read k-mers probe it with pure vector arithmetic —
 a multiply-xor-shift mix, one or two 8-wide bucket gathers, and lane-wise
 compares.  No strings, no subprocesses.
 
@@ -18,8 +18,8 @@ arrays of length ``n_buckets * BUCKET``:
 
 Collisions fall through to the next bucket (bucket-level linear probing);
 ``max_probe`` is recorded at build time so queries unroll a static probe
-loop (usually 1-2).  Load factor defaults to 0.25 — probe count matters far
-more than memory on TPU.
+loop (usually 1-2).  Load factor defaults to 0.25: probe count matters
+more than memory.
 
 The mixing function is a murmur3-style 32-bit finalizer over both halves;
 queries and the host builder share it bit-for-bit.
@@ -224,9 +224,8 @@ class KmerTable:
         """[n_buckets, BUCKET*3] int32 (hi, lo, val interleaved per slot).
 
         The device-side layout: one bucket probe is ONE row gather of
-        ``3*BUCKET`` contiguous int32s.  On TPU this is ~30x faster than
-        three separate 8-wide gathers — XLA gather cost scales with row
-        count, not row width."""
+        ``3*BUCKET`` contiguous int32s instead of three separate 8-wide
+        gathers."""
         inter = np.empty((self.n_buckets, BUCKET * 3), dtype=np.int32)
         inter[:, 0::3] = self.key_hi.view(np.int32).reshape(
             self.n_buckets, BUCKET)
@@ -346,11 +345,10 @@ class _LazyKmerTable(KmerTable):
 
 @dataclasses.dataclass
 class FpTable:
-    """Single-probe fingerprint table — the TPU hot-path index.
+    """Single-probe fingerprint table — the count hot path's index.
 
-    The query cost of :class:`KmerTable` is dominated by XLA's gather unit
-    (~150-350M rows/s on v5e regardless of locality), so the probe loop is
-    optimized for *one gather of the narrowest possible row*: each bucket
+    The query cost of :class:`KmerTable` is dominated by its row gathers,
+    so the probe loop is optimized for *one gather per window*: each bucket
     is ``bucket`` consecutive uint32 fingerprints (no keys, no values in
     the hot row).  Build retries hash seeds until every key fits its home
     bucket with a bucket-unique fingerprint — queries then need exactly
@@ -434,14 +432,9 @@ class FpTable:
         """Build from unique packed k-mers; retries seeds (then doubles the
         table) until the single-probe invariant holds.
 
-        Geometry default (bucket=64 fingerprints/row = 256B, load 0.5)
-        comes from the measured v5e gather curve
-        (benchmarks/PROBE_STUDY*.json): XLA row gathers cost per ROW, and
-        256B rows run ~2x the rows/s of 64B rows on HBM-resident tables
-        (88M vs 44M rows/s at 512MB), lifting the fused
-        probe+compare+scatter kernel from 30.1 to 44.5M windows/s at
-        E. coli scale (28.6M keys) while halving table bytes vs the old
-        bucket=16 load 0.25."""
+        Geometry default: bucket=64 fingerprints/row (256 B), load 0.5 —
+        not yet measured on the H100 (the bucket size is persisted in
+        ``tree/fptable.npz``)."""
         keys_u64 = np.ascontiguousarray(keys_u64, dtype=np.uint64)
         n = int(keys_u64.shape[0])
         if values is None:
@@ -574,17 +567,24 @@ def lookup_fp_device(fp_table, n_buckets: int, bucket: int, seed: int, hi, lo):
     """
     import jax.numpy as jnp
 
-    shape = hi.shape
-    hi = hi.reshape(-1)
-    lo = lo.reshape(-1)
     b = (mix_jnp(hi, lo, seed) & jnp.uint32(n_buckets - 1)).astype(jnp.int32)
-    f = fp2_jnp(hi, lo)
+    return lookup_fp_rows(fp_table, b, fp2_jnp(hi, lo), bucket)
+
+
+def lookup_fp_rows(fp_table, bucket_or_neg, fp, bucket: int):
+    """Finish a fingerprint probe from per-query (bucket, fingerprint):
+    gather each bucket row and return int32 slot ids (bucket_idx *
+    ``bucket`` + first matching lane), -1 where no lane matches or the
+    bucket is -1 (an invalid window)."""
+    import jax.numpy as jnp
+
+    shape = bucket_or_neg.shape
+    b = jnp.maximum(bucket_or_neg, 0).reshape(-1)
     rows = fp_table.at[b].get(mode="promise_in_bounds")  # [Q, bucket]
-    hit = rows == f[:, None]
+    hit = rows == fp.reshape(-1)[:, None]
     lane = jnp.argmax(hit, axis=1).astype(jnp.int32)
-    found = jnp.any(hit, axis=1)
-    slot = b * jnp.int32(bucket) + lane
-    return jnp.where(found, slot, -1).reshape(shape)
+    found = jnp.any(hit, axis=1) & (bucket_or_neg.reshape(-1) >= 0)
+    return jnp.where(found, b * jnp.int32(bucket) + lane, -1).reshape(shape)
 
 
 def lookup_device(table, n_buckets: int, max_probe: int, hi, lo):

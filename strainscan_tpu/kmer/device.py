@@ -1,7 +1,7 @@
-"""Device-side k-mer extraction (JAX, TPU-friendly 32-bit arithmetic).
+"""Device-side k-mer extraction (JAX, 32-bit arithmetic).
 
-TPUs have no native 64-bit integer lanes, so packed k-mers live as
-``(hi, lo)`` uint32 pairs on device: ``hi`` holds the top ``2k-32`` bits
+Packed k-mers live as ``(hi, lo)`` uint32 pairs on device, so no
+process-wide ``jax_enable_x64`` is needed: ``hi`` holds the top ``2k-32`` bits
 (the 5'-most bases), ``lo`` the bottom 32 bits.  The layout matches
 :mod:`strainscan_tpu.kmer.pack` exactly, so host-built hash tables and
 device-extracted query k-mers agree bit-for-bit.
@@ -9,7 +9,7 @@ device-extracted query k-mers agree bit-for-bit.
 This replaces the jellyfish read-scan (reference library/identify.py:73-103)
 on the device side: a batch of padded encoded reads ``[B, L]`` (codes 0..3,
 4 = N/pad) becomes all valid k-mer windows ``[B, L-k+1]`` with a validity
-mask, using ``k`` static shift-or passes (pure VPU work, no gathers).
+mask, using ``k`` static shift-or passes (elementwise work, no gathers).
 """
 
 from __future__ import annotations

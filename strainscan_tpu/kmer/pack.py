@@ -12,9 +12,8 @@ Encoding: A=0, C=1, G=2, T=3, anything else (N, IUPAC codes) = 4
 is ``(~x)`` with the 2-bit groups reversed, and lexicographic order of
 k-mer strings equals numeric order of packed values.
 
-Device code carries packed k-mers as (hi, lo) ``uint32`` pairs because
-TPUs have no native 64-bit integer lanes; :func:`split_u64` /
-:func:`join_u32` convert.
+Device code carries packed k-mers as (hi, lo) ``uint32`` pairs (no
+process-wide 64-bit mode); :func:`split_u64` / :func:`join_u32` convert.
 """
 
 from __future__ import annotations
@@ -282,7 +281,7 @@ def bitpack_codes(codes: np.ndarray, need_vbytes: bool = True):
     ``(words, vbytes)``: ``words`` uint32 [B, ceil(L/16)] with base p in
     bits [2*(p%16), 2*(p%16)+1] of word p//16, and ``vbytes`` uint8
     [B, ceil(L/8)] with validity bit p%8 of byte p//8.  Cuts host->device
-    transfer ~3.5x — the dominant cost on PCIe-attached and tunneled TPUs.
+    transfer ~3.5x.
     """
     b, length = codes.shape
     w = -(-length // 16)
@@ -353,8 +352,8 @@ def valid_prefix_lens(codes: np.ndarray):
 
     Reads are padded to the batch maxlen with invalid code 4 and rarely
     contain Ns, so validity is almost always a prefix run — describable
-    in 2 bytes/row instead of ceil(L/8) vbytes (~27% less h2d traffic on
-    tunneled/PCIe TPUs for 150 bp reads)."""
+    in 2 bytes/row instead of ceil(L/8) vbytes (~27% less h2d traffic for
+    150 bp reads)."""
     valid = codes < 4
     lens = valid.sum(axis=1).astype(np.uint16)
     length = codes.shape[1]

@@ -5,7 +5,7 @@
  * zero-copy C data loader: sequences stream through zlib (gzFile reads
  * both plain and gzipped files), bases are encoded A=0 C=1 G=2 T=3 /
  * other=4 straight into a caller-provided [batch, maxlen] uint8 buffer
- * that is shipped to the TPU as-is.  Long reads are split into chunks
+ * that is shipped to the device as-is.  Long reads are split into chunks
  * with a (k-1)-base overlap so no k-mer window is lost.
  *
  * Also provides whole-genome packed-k-mer extraction for DB builds

@@ -1,16 +1,15 @@
 """Multi-host execution: jax.distributed bootstrap + host-level input
 sharding.
 
-The reference is single-node (SURVEY §2.3); this is the TPU-native
-equivalent mandated by BASELINE.json's north star: every host parses its
-own slice of the FASTQ stream (DCN moves only raw input and the O(strains)
-merged report), while per-k-mer count vectors merge over ICI inside
-``ShardedCountPipeline``'s psum.
+The reference is single-node (SURVEY §2.3).  Here every host parses its
+own slice of the FASTQ stream (the network moves only raw input and the
+O(strains) merged report), while per-k-mer count vectors merge across a
+host's devices inside ``ShardedCountPipeline``'s psum.
 
-Usage (one process per host, e.g. under a pod scheduler):
+Usage (one process per host, e.g. under a cluster scheduler):
 
     from strainscan_tpu.parallel import distributed as dist
-    dist.initialize()                  # env-driven (TPU pods auto-detect)
+    dist.initialize()                  # env-driven
     ...
     # identification as usual; global meshes span all hosts' devices
 
@@ -30,10 +29,9 @@ log = logging.getLogger("strainscan_tpu.distributed")
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Bring up jax.distributed.  On TPU pods all arguments auto-detect
-    from the environment; off-pod they come from the standard
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID vars or
-    the explicit arguments."""
+    """Bring up jax.distributed.  Arguments come from the explicit
+    parameters or the standard JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID variables."""
     import jax
 
     kwargs = {}

@@ -1,10 +1,12 @@
 """Persistent XLA compilation cache setup (shared by the CLI and the
 library entry points).
 
-Repeat identify runs skip the one-time jit compiles — tens of seconds
-per batch shape on remote-compile TPU setups — by pointing JAX at a
-persistent on-disk cache.  Opt out with ``STRAINSCAN_JAX_CACHE=0``;
-point it elsewhere with ``STRAINSCAN_JAX_CACHE=<dir>``.
+Repeat identify runs skip the one-time jit compiles by pointing JAX at a
+persistent on-disk cache.  When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX
+reads it itself and nothing here overrides it; otherwise the cache lives
+at one fixed directory inside the checkout (:data:`DEFAULT_DIR`, listed
+in ``.gitignore``).  A fixed path matters: the directory is part of what
+a later process must find again.
 """
 
 from __future__ import annotations
@@ -12,7 +14,18 @@ from __future__ import annotations
 import logging
 import os
 
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+
 _DONE = False
+
+
+def cache_dir() -> str | None:
+    """The directory this module would configure, or None when the
+    environment variable already names one."""
+    return None if os.environ.get(ENV_VAR) else DEFAULT_DIR
 
 
 def enable_compile_cache() -> None:
@@ -20,17 +33,14 @@ def enable_compile_cache() -> None:
     if _DONE:
         return
     _DONE = True
-    loc = os.environ.get("STRAINSCAN_JAX_CACHE", "")
-    if loc == "0":
-        return
-    if not loc:
-        loc = os.path.join(os.path.expanduser("~"), ".cache",
-                           "strainscan_tpu", "jax")
-    try:
-        import jax
+    import jax
 
-        os.makedirs(loc, exist_ok=True)
+    loc = cache_dir()
+    if loc is not None:
+        try:
+            os.makedirs(loc, exist_ok=True)
+        except OSError as e:  # read-only checkout: run without the cache
+            logging.warning("compilation cache disabled: %s", e)
+            return
         jax.config.update("jax_compilation_cache_dir", loc)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception as e:  # cache is an optimization, never fatal
-        logging.debug("compilation cache unavailable: %s", e)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)

@@ -158,7 +158,7 @@ def imported(tmp_path_factory):
     for sub in ("Kmer_Sets_L2", "Cluster_Result"):
         shutil.copytree(os.path.join(refdb, sub), os.path.join(hybrid, sub))
 
-    # import the reference-built artifacts into the TPU-native layout
+    # import the reference-built artifacts into the native layout
     imported_db = os.path.join(d, "DB_imported")
     import_reference_db(hybrid, imported_db)
     return d, strains, imported_db, hybrid, tree_dir

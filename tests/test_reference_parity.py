@@ -1,7 +1,7 @@
 """Head-to-head parity vs the ACTUAL reference implementation.
 
 The BASELINE.md north star is bit-identical strain reports vs CPU
-StrainScan.  These tests build a DB with the TPU pipeline, export it to
+StrainScan.  These tests build a DB with this pipeline, export it to
 the reference layout (build/convert.py), run
 /root/reference/StrainScan.py on it (via tools/run_reference.py: real
 bundled jellyfish binary + treelib shim + two API-rename patches), and
@@ -79,7 +79,7 @@ def _write_fq(path, reads, gz=False):
 
 @pytest.fixture(scope="module")
 def dbs(tmp_path_factory):
-    """Genomes, TPU DB (+mem variant), and reference-layout exports."""
+    """Genomes, native DB (+mem variant), and reference-layout exports."""
     d = tmp_path_factory.mktemp("parity")
     gdir = d / "genomes"
     gdir.mkdir()
